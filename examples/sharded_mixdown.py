@@ -4,9 +4,9 @@
 The flagship song path scales by data parallelism over a 1-D
 ``jax.sharding.Mesh``: sample hits shard across devices and merge with one
 int32 ``psum`` (bit-exact — integer add is associative), synth voices shard
-over the same axis with an f32 ``psum`` per chunk.  On real hardware the
-same code runs over ICI; here we force 8 virtual CPU devices so the demo
-works anywhere:
+over the same axis with an f32 ``psum`` per chunk.  On several GPUs the
+same code runs over their interconnect; here we force 8 virtual CPU
+devices so the demo works anywhere:
 
     python examples/sharded_mixdown.py [out.wav]
 """

@@ -1,4 +1,4 @@
-"""goldref — the golden oracle for the TPU rebuild of irmen/synthesizer.
+"""goldref — the golden oracle for the JAX rebuild of irmen/synthesizer.
 
 Because the mounted reference is a tombstone (see SURVEY.md §0), this package
 *defines* the behavioral contract: pure-numpy, host-side implementations of
@@ -9,7 +9,7 @@ Because the mounted reference is a tombstone (see SURVEY.md §0), this package
   (:mod:`goldref.osc`);
 * reference-level ``Sample`` op semantics (:mod:`goldref.sample`).
 
-The TPU framework in ``synthesizer_tpu`` is tested against this package:
+The JAX framework in ``synthesizer_tpu`` is tested against this package:
 bit-exact for integer PCM ops, bit-exact for float32-spec ops, and ≤1 LSB at
 16-bit for the transcendental oscillator path (BASELINE.json north_star).
 """

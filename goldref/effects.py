@@ -1203,7 +1203,7 @@ def hq_resample(frames: np.ndarray, width: int, inrate: int,
     """Windowed-sinc polyphase rational resampler, sequential f64 oracle.
 
     Spec (shared with the device twin ops.resample.hq_resample, which is
-    ONE strided f32 convolution on the MXU):
+    ONE strided f32 convolution):
 
     * reduce the ratio: L = outrate/g, M = inrate/g (g = gcd) — the
       signal is conceptually zero-stuffed by L, filtered by the

@@ -12,7 +12,7 @@ The oracle owns its spec: node types and DDS constants come from
 ``tests/test_oracle_anchors.py``), and dispatch is by type NAME +
 attributes, so the product's ``synthesizer_tpu.models.spec`` trees evaluate
 through the oracle's OWN constants — a product-side semantics bug cannot
-shift the oracle (VERDICT r1 #5).  Nothing here imports from
+shift the oracle.  Nothing here imports from
 ``synthesizer_tpu``.
 
 Always renders from absolute sample 0 (the chunk-invariance of the device

@@ -91,7 +91,7 @@ def mul_f32(fragment: bytes, width: int, factor: float) -> bytes:
     """float32-spec variant of :func:`mul` (the device contract).
 
     The rebuild's device ops compute float-factor scaling in IEEE float32
-    (TPU-native); this host twin uses numpy float32 so device-vs-oracle tests
+    on the device); this host twin uses numpy float32 so device-vs-oracle tests
     are bit-exact.  Differs from audioop's float64 path by at most 1 LSB.
     """
     a = frombytes(fragment, width).astype(np.float32)

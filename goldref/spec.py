@@ -1,7 +1,7 @@
 """Oracle-owned FROZEN copy of the patch-spec node types and DDS constants.
 
-The golden oracle must not share code with the product it arbitrates
-(VERDICT r1 #5): if ``goldref`` imported ``synthesizer_tpu.models.spec``, a
+The golden oracle must not share code with the product it arbitrates:
+if ``goldref`` imported ``synthesizer_tpu.models.spec``, a
 semantics bug in the product's spec helpers (e.g. ``phase_increment``
 rounding) would shift both sides of every differential test in lockstep.
 This module is a deliberate copy, pinned by ``tests/test_oracle_anchors.py``
@@ -27,7 +27,7 @@ Numeric spec (the contract both evaluators implement):
 * value_n = bias + amplitude * wave(phase_n); the ``phase`` constructor
   argument is in turns.
 * White noise: sample-and-hold counter hash (``noise_u32``), seeded.
-* Pluck (Karplus–Strong in spectral form — the TPU-native formulation of
+* Pluck (Karplus–Strong in spectral form — the data-parallel formulation of
   the classic delay-line/averager loop): with K = num_harmonics,
   inc = phase_increment(f, sr), ratio = f32(inc) * 2**-32, and harmonic
   k in 1..K active iff k*inc < 2**31 (below Nyquist):
@@ -160,10 +160,10 @@ class Biquad:
     y_n = b0 x_n + b1 x_{n-1} + b2 x_{n-2} - a1 y_{n-1} - a2 y_{n-2}
     with zero initial state.  The exact arbiter is the oracle's f64
     SEQUENTIAL recurrence; the device evaluates the same recurrence as a
-    parallel affine scan in f32 (TPU-friendly), specified to agree within
+    parallel affine scan in f32, specified to agree within
     a few LSB at 16-bit — up to ~16 LSB (-66 dB) when the poles
     approach the unit circle (strong resonance q >~ 8, or cutoff <<
-    samplerate; measured on TPU hardware).  Block-size
+    samplerate).  Block-size
     invariance holds to the same tolerance (f32 rounding depends on the
     scan grouping), unlike every other node's bit-exact invariance.
     """

@@ -5,7 +5,7 @@
  * Python 3.13.  This library is the rebuild's own native equivalent for
  * the *host* paths where device dispatch latency dominates: realtime
  * mixer chunk addition (~1470 frames every 33 ms) and level metering.
- * Bulk offline DSP stays on the TPU.
+ * Bulk offline DSP stays on the device.
  *
  * Semantics match goldref.pcm exactly: saturating adds; float32-spec
  * scaling (f32 product, floor, clamp); peak/mean-square metering.

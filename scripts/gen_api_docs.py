@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Generate docs/API.md from the LIVE public surface (VERDICT r3 #9).
+"""Generate docs/API.md from the LIVE public surface.
 
 Introspection keeps the reference complete and honest: every name in the
 package __all__s, every public Sample method/property, every oscillator
@@ -19,7 +19,6 @@ import inspect
 import io
 import sys
 
-sys.path.insert(0, "/root/repo")
 import os
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -148,7 +147,7 @@ regenerate after changing any public surface (`tests/test_api_docs.py`
 fails when this file is stale).  Each entry: real signature + the first
 line of the real docstring.  *Budget* labels the numeric contract class
 (derivations: `docs/NUMERICS.md`; pinned by the CPU suite and the
-on-chip battery `scripts/tpu_verify.py`):
+on-card battery `scripts/chip_verify.py`):
 
 * **bit-exact (integer audioop semantics)** — integer PCM ops equal the
   measured C audioop behavior bit for bit.

@@ -1,6 +1,6 @@
-"""synthesizer_tpu — a TPU-native audio DSP framework.
+"""synthesizer_tpu — an accelerator-native audio DSP framework in JAX.
 
-A ground-up JAX/XLA/Pallas rebuild of the capabilities of irmen/synthesizer
+A ground-up JAX/XLA rebuild of the capabilities of irmen/synthesizer
 ("synthplayer"): a device-resident ``Sample`` PCM buffer with chainable DSP
 ops, a declarative oscillator graph lowered to fused device programs, the
 ``WaveSynth`` eager renderer, a batched voice-bank engine, a pattern

@@ -3,12 +3,12 @@
 These are the host-side f64 mappings from user-facing effect knobs to the
 recurrence coefficients, delay-line tunings, and analysis grids that the
 device kernels consume.  They are part of the PRODUCT's frozen numeric
-contract (VERDICT r2 weak #2): ``goldref`` keeps its *own verbatim copies*
+contract: ``goldref`` keeps its *own verbatim copies*
 (the oracle may not import the product — goldref/spec.py rule), and
 ``tests/test_coeffs_conformance.py`` pins the two copies equal over knob
 grids, so the differential effect tests actually test the device
 recurrences, not shared code.  ``synthesizer_tpu`` deploys without
-``goldref`` on the path (the SYNTH_TPU_HIDE_GOLDREF CI mode proves it).
+``goldref`` on the path.
 
 Every function is pure host math (f64 where noted, with the same f32
 casts the per-sample specs use) — nothing here touches jax.
@@ -106,8 +106,8 @@ def chorus_block_plan(n: int, samplerate: int, rate: float, depth: float,
                       target_taps: int = 12):
     """Host-side blocking plan for the BANDED offline chorus
     (ops.effects.chorus): the static-knob LFO delay curve is a pure host
-    function of the absolute frame index (the same property that freed
-    the phase-vocoder windows — BASELINE.md "Gather-tier roofline"), so
+    function of the absolute frame index (the same property the
+    phase-vocoder windows use), so
     per-block window starts are TRACE-TIME CONSTANTS and the per-frame
     modulated gather disappears entirely.
 
@@ -115,7 +115,7 @@ def chorus_block_plan(n: int, samplerate: int, rate: float, depth: float,
     ``depth*pi*rate*G`` frames, so G is sized to keep the per-block
     integer-delay spread near ``target_taps``; the device then reads one
     host-anchored window per block (a ~n/G-row sliced gather — hundreds
-    of rows, far below any gather roofline) and reduces K+2 static tap
+    of rows) and reduces K+2 static tap
     slices with exact one-hot lerp weights.
 
     The host mirrors the device delay curve (goldref.effects
@@ -399,8 +399,8 @@ def biquad_peak_gain(coeffs, ngrid: int = 4096) -> float:
 def master_chain_error_bound(stages, samplerate: int,
                              e_in_lsb: float) -> float:
     """Derived LSB error bound for an input perturbation of ``e_in_lsb``
-    (16-bit LSB) through a master fx chain — the mesh swept-chain budget
-    (VERDICT r3 #7), composed the way the scan-conditioning model is:
+    (16-bit LSB) through a master fx chain — the mesh swept-chain
+    budget, composed the way the scan-conditioning model is:
     per-stage worst-case gain bounds from the ACTUAL parameters, not an
     observed constant.
 

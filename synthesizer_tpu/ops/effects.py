@@ -1,4 +1,4 @@
-"""Device effects rack: dynamics, reverb, chorus, convolution (JAX/TPU).
+"""Device effects rack: dynamics, reverb, chorus, convolution (JAX).
 
 Beyond-reference effects (the reference's only effect is the feed-forward
 echo — SURVEY.md §3.1 row 2); the behavioral contract and the tolerance
@@ -8,7 +8,7 @@ deliberately *not* a per-sample loop:
 * the compressor's peak follower is a **decaying-max associative scan**
   (``e_n = max(a_n, e_{n-1} d)`` composes as
   ``(x1,d1)∘(x2,d2) = (max(x2, x1 d2), d1 d2)``) and its attack smoother is
-  a scalar **affine associative scan** — both log-depth on the VPU;
+  a scalar **affine associative scan** — both log-depth;
 * the offline reverb is a **lag-aligned gather-free scan**: each comb's
   scan row is its own delay length D, so the lag-D ring read is exactly the
   previous row of that lane — all lanes of both channel networks batch into
@@ -18,8 +18,9 @@ deliberately *not* a per-sample loop:
 * the chorus is pure gather + lerp (no recurrence);
 * convolution runs as an f32 FFT product (``jnp.fft``).
 
-All scalar scans stay on the VPU in f32 — no matmuls, so the bf16-MXU
-quantization trap that bit the Biquad scan (models/graph.py) cannot apply.
+All scalar scans are elementwise f32 — no matmuls, so the reduced-
+precision matmul trap of the Biquad companion scan (bf16 or TF32 inputs,
+see companion_scan) cannot apply.
 """
 
 from __future__ import annotations
@@ -80,7 +81,7 @@ def affine_scan(coeff: jax.Array, add: jax.Array, init, axis: int = 0) -> jax.Ar
     recurrence as an associative scan along ``axis`` (map composition
     l-then-r: (Al,Bl)∘(Ar,Br) = (Al*Ar, Bl*Ar + Br)); other axes are
     independent lanes.  ``init`` must broadcast against the result.
-    Pure VPU f32 — no MXU."""
+    Elementwise f32 — no matmul."""
     def combine(l, r):
         al, bl = l
         ar, br = r
@@ -99,15 +100,15 @@ def one_pole_scan(target: jax.Array, alpha: float, init: float) -> jax.Array:
 
 def companion_scan(u: jax.Array, a1, a2, y1, y2) -> jax.Array:
     """y_n = u_n - a1_n y_{n-1} - a2_n y_{n-2} as a PARALLEL affine scan
-    over 2x2 companion matrices (log-depth on the VPU — TPU-first IIR).
+    over 2x2 companion matrices (log-depth IIR).
     ``a1``/``a2`` may be scalars (constant-coefficient biquads) or [B]
     arrays (swept filters); ``y1``/``y2`` carry state across blocks.
 
-    precision=HIGHEST everywhere: the TPU MXU multiplies in bf16 by
-    default, which quantizes the cumulative 2x2 products to ~2^-8
-    relative and destroys the recurrence (caught by the on-chip battery —
-    the round-1 hardware bug class).  Shared by the graph Biquad lowering
-    and the Sample-level filter op.
+    precision=HIGHEST everywhere: at default precision a GPU may multiply
+    f32 matrices in TF32 (~2^-11 relative), which quantizes the
+    cumulative 2x2 products and destroys the recurrence (the bug class
+    the on-card battery's filter checks exist for).  Shared by the graph
+    Biquad lowering and the Sample-level filter op.
 
     Numeric conditioning (root cause of the high-Q drift, derived in
     tests/test_filters.scan_error_bound_lsb): the scan's error vs the
@@ -153,16 +154,18 @@ def companion_scan(u: jax.Array, a1, a2, y1, y2) -> jax.Array:
 # coefficients arrive as non-overlapping (hi, lo) f32 pairs split from
 # f64 on host, and the feed-forward taps, companion-matrix products, and
 # affine terms all run in Dekker/Knuth error-free-transformation
-# arithmetic (~2^-45 effective precision) on the VPU — f64 in disguise,
-# on hardware with no f64 units.  ~8x the flops of the plain scan; used
+# arithmetic (~2^-45 effective precision) — f64 in disguise, inside
+# JAX's default 32-bit types.  ~8x the flops of the plain scan; used
 # only where ops.coeffs.predicted_scan_error_lsb says the plain scan
 # would drift (the staged filter/eq ops and the streaming twins decide
 # per coefficient set on host).
 #
-# EFT safety on this backend: TwoSum is contraction-proof (no multiply);
-# Dekker's product error term survives FMA contraction because ah*bh is
-# EXACT in f32 (12-bit x 12-bit splits), so fma(ah, bh, -p) ==
-# round(ah*bh - p) == the uncontracted value.
+# EFT safety under FMA contraction: TwoSum is contraction-proof (no
+# multiply); Dekker's product error term survives because ah*bh is EXACT
+# in f32 (12-bit x 12-bit splits), so fma(ah, bh, -p) == round(ah*bh - p)
+# == the uncontracted value.  A contracted Veltkamp split (t - a with
+# t = a*c) is the remaining risk; the battery's fx/ff_scan_eft_on_hw
+# checks the whole scan on the card (0 LSB from the f64 oracle on an H100).
 # ---------------------------------------------------------------------------
 
 def _ff_norm(hi, lo):
@@ -566,9 +569,8 @@ def _comb_stage_whole(mono_in: jax.Array, comb_sets, fb, d1,
     the input to a common [M, Dmax] with identity-affine padding columns
     (a=1, b=0 keeps the damping state flowing past the pad), so ONE
     lax.scan of M = ceil(n/Dmin) steps serves all lanes with one in-row
-    affine scan per step.  This replaced the gather/scatter blocked scan
-    that sat at the measured ~102 M rows/s gather roofline (BASELINE.md
-    "Gather-tier roofline"); same goldref recurrence, f32 scan regrouping
+    affine scan per step.  This replaced a gather/scatter blocked scan;
+    same goldref recurrence, f32 scan regrouping
     within the documented <=4 LSB budget (goldref.effects.reverb).
     Returns [n, len(comb_sets)] (each network's comb sum)."""
     total = int(mono_in.shape[0])
@@ -757,22 +759,18 @@ def chorus_core(s: jax.Array, n0, hist: jax.Array, samplerate: int, rate,
 
     Round 4 measured (and rejected) a grouped-row alternative to the
     per-frame gather — G consecutive frames sharing one W-wide row with
-    one-hot in-row extraction, the trick that paid off for the
-    host-known stretch windows: vmap(dynamic_slice) rows gathered at
-    ~0.7 M rows/s (100x below the plain gather's measured rate) and a
-    device-built shifted-copies row gather landed at parity with the
-    pair gather at best (0.039 s vs 0.034 s per 60 s voice-channel), so
-    the data-dependent per-frame pair gather below IS the roofline form
-    on this hardware (BASELINE.md "Gather-tier roofline")."""
+    one-hot in-row extraction, the trick used for the host-known
+    stretch windows: vmap(dynamic_slice) rows and a device-built
+    shifted-copies row gather were both tried, and the data-dependent
+    per-frame pair gather below is the form kept."""
     n, nch = s.shape
     H = hist.shape[0]
     ext = jnp.concatenate([hist, s], axis=0)    # position j maps to ext[H+j]
-    # pair-packing (the pitched-sampler trick, BASELINE.md): the lerp
-    # needs (ext[i0-1], ext[i0]) — gather ONE row of a pair-packed array
-    # instead of two rows.  TPU gathers serialize per INDEX ROW, so this
-    # halves the op's gather cost (measured 60x -> 90x on the sampler);
-    # values are identical, so output is bit-identical to the two-gather
-    # form.  prev[0] = 0 matches the i0 == 0 edge of the old v0 mask.
+    # pair-packing (the pitched-sampler trick): the lerp needs
+    # (ext[i0-1], ext[i0]) — gather ONE row of a pair-packed array
+    # instead of two rows, halving the gathered index rows; values are
+    # identical, so output is bit-identical to the two-gather form.
+    # prev[0] = 0 matches the i0 == 0 edge of the old v0 mask.
     prev = jnp.concatenate([jnp.zeros((1, nch), jnp.float32), ext[:-1]],
                            axis=0)
     pairs = jnp.stack([prev, ext], axis=2)      # [H+n, ch, 2]
@@ -805,8 +803,8 @@ def chorus_core(s: jax.Array, n0, hist: jax.Array, samplerate: int, rate,
 #: Banded-chorus tap cap: the K+2 static tap slices unroll in Python, so
 #: the HLO grows as (K+2)*voices*nch full-length slice/where/fma ops.  K
 #: tracks depth*pi*rate*G (the in-block delay spread); past this bound the
-#: pair gather is the better program (compile size and wasted FLOPs beat
-#: the gather-roofline win), so chorus() routes back to it.
+#: pair gather is the better program (compile size and wasted FLOPs
+#: outweigh the gather saved), so chorus() routes back to it.
 CHORUS_BANDED_MAX_TAPS = 64
 
 
@@ -817,16 +815,14 @@ def chorus(frames: jax.Array, samplerate: int, rate: float, depth: float,
 
     Offline knobs are STATIC, which makes the LFO delay curve a pure
     host function of the absolute frame index — the same property that
-    freed the phase-vocoder windows from the gather tier (BASELINE.md
-    "Gather-tier roofline", round-4 stretch escape).  The round-5 banded
+    lets the phase-vocoder windows avoid an element gather.  The banded
     form exploits it: the host plans per-block window starts
     (ops.coeffs.chorus_block_plan), the device reads ~n/G anchored
-    window rows (a few-hundred-row sliced gather, far below any gather
-    roofline) and reduces K+2 STATIC tap slices with exact one-hot lerp
-    weights — the per-frame modulated pair gather (15.9 M index rows per
-    60 s render, the round-4 roofline) is GONE.  Arithmetic per output
-    is the identical two-term f32 lerp in the identical order, so the
-    banded path is bit-compatible with the gather form (pinned by
+    window rows (a few-hundred-row sliced gather) and reduces K+2 STATIC
+    tap slices with exact one-hot lerp weights — the per-frame modulated
+    pair gather (15.9 M index rows per 60 s render) is gone.  Arithmetic
+    per output is the identical two-term f32 lerp in the identical order,
+    so the banded path is bit-compatible with the gather form (pinned by
     tests/test_effects.py) and holds the same goldref budget."""
     width = dpcm.width_of(frames)
     n, nch = int(frames.shape[0]), int(frames.shape[1])
@@ -853,8 +849,7 @@ def chorus(frames: jax.Array, samplerate: int, rate: float, depth: float,
         # fast/deep LFOs (depth*pi*rate per-frame delay motion past
         # ~target_taps/G_min) would unroll K+2 full-length tap slices per
         # voice per channel — hundreds of wasted O(n) ops and an HLO-size
-        # blowup; those knobs stay on the pair gather, which IS their
-        # measured roofline form (BASELINE.md "Gather-tier roofline")
+        # blowup; those knobs stay on the pair gather
         return _gather_form()
     s = _norm(frames)
     dryv = jnp.asarray(dry, jnp.float32)
@@ -943,12 +938,11 @@ def convolve_chunk(frames: jax.Array, ir_norm: jax.Array, wet, dry,
 # Phase-vocoder time stretch
 # ---------------------------------------------------------------------------
 
-#: Lane width for the row-packed analysis-window gather below.  The TPU
-#: serializes gathers per index ROW (BASELINE.md "Gather-tier roofline",
-#: ~102 M rows/s), so gathering W elements per row costs the same as one —
-#: W shifted copies of the signal turn the [T, frame] element gather into
-#: a [T, frame/W]-row gather, W x fewer rows for W x the staging memory
-#: (W * n * 4 bytes).
+#: Lane width for the row-packed analysis-window gather below: W shifted
+#: copies of the signal turn the [T, frame] element gather into a
+#: [T, frame/W]-row gather, W x fewer index rows for W x the staging
+#: memory (W * n * 4 bytes).  Whether this still pays over the plain
+#: element gather on a GPU is not measured yet.
 FRAME_GATHER_WIDTH = 16
 
 
@@ -982,7 +976,7 @@ def _framed_rows(s1: jax.Array, starts_np: np.ndarray,
 def stretch(frames: jax.Array, factor: float, frame: int = 2048,
             hop: int = 512) -> jax.Array:
     """Phase-vocoder time stretch; spec, grid, and tolerance:
-    goldref.effects.stretch.  TPU shape: ONE row-packed gather builds all
+    goldref.effects.stretch.  Device shape: ONE row-packed gather builds all
     [T, frame] windows (_framed_rows), batched rfft/irfft over the frame
     axis, the per-bin phase accumulation is a cumsum (parallel prefix),
     and the overlap-add is R contiguous slice-adds — no per-frame host
@@ -1071,7 +1065,7 @@ def granulate(frames: jax.Array, samplerate: int, duration: float,
               grain: float, density: float, jitter: float, amplitude,
               seed: int) -> jax.Array:
     """Granular resynthesis; spec/grid/tolerance: goldref.effects.granulate.
-    TPU shape: ONE [G, L] gather builds every grain, one window multiply,
+    Device shape: ONE [G, L] gather builds every grain, one window multiply,
     one scatter-add onto the canvas — positions are the shared host grid."""
     from .coeffs import grain_grid
     width = dpcm.width_of(frames)
@@ -1183,7 +1177,7 @@ def stereo_width(frames: jax.Array, amount) -> jax.Array:
 def limiter_gains_core(a: jax.Array, ceil_db, decay, L: int,
                        r0=jnp.float32(0.0), gpad0=None):
     """Per-sample limiter gains from the linked detector level ``a`` [n]
-    (spec: goldref.effects.limiter_gains).  TPU shape: the lookahead
+    (spec: goldref.effects.limiter_gains).  Device shape: the lookahead
     window max and the box attack ramp are ``reduce_window`` ops, the
     release is the associative decaying-max scan — no sequential loops.
 

@@ -13,9 +13,9 @@ For widths 1/2 the emission is provably ``floor(S / outrate)`` in the
 *sample* domain with ``S = prev*d + cur*(outrate-d)`` whenever the reduced
 ``outrate < 2**(32-8w)`` (derivation: the 32-bit-domain trunc-toward-zero
 followed by the arithmetic narrowing shift collapses to a single floor
-division) — pure int32, bit-exact to audioop, VPU-friendly.  Width 4 (the
+division) — pure int32, bit-exact to audioop.  Width 4 (the
 32-bit domain itself, trunc-toward-zero division) runs via exact
-16-bit-limb long division (``_interp_trunc_i32`` — TPUs have no int64)
+16-bit-limb long division (``_interp_trunc_i32`` — no int64 in 32-bit JAX)
 for reduced ``outrate <= 2**15``.  Pathological reduced rates beyond
 those bounds take the fully general device path (round 3): the exact
 32-bit-domain interpolation in sign-magnitude uint32 limb arithmetic
@@ -81,7 +81,7 @@ def _interp_trunc_i32(prev: jax.Array, cur: jax.Array, dk: jax.Array,
                       outr: int) -> jax.Array:
     """Exact ``(int)((prev*d + cur*(outr-d)) / outr)`` (trunc toward zero)
     for FULL-RANGE int32 samples, entirely in int32 — 16-bit-limb long
-    division, since TPUs have no int64.
+    division, since JAX's default 32-bit mode has no int64.
 
     Let v = vh*2^16 + vl (vh = v>>16 arithmetic, vl = v & 0xFFFF).  Then
     S = A*2^16 + B with A = ph*d + ch*e, B = pl*d + cl*e (e = outr-d).
@@ -109,7 +109,7 @@ def _interp_trunc_i32(prev: jax.Array, cur: jax.Array, dk: jax.Array,
 
 def _mul_u32(a: jax.Array, b: jax.Array):
     """Full 32x32 -> 64-bit UNSIGNED product as a (hi, lo) uint32 pair,
-    via 16-bit limbs (TPUs have no int64/uint64)."""
+    via 16-bit limbs (JAX's default 32-bit mode has no int64/uint64)."""
     mask = jnp.uint32(0xFFFF)
     a0, a1 = a & mask, a >> 16
     b0, b1 = b & mask, b >> 16
@@ -461,8 +461,8 @@ def _hq_kernel(L: int, M: int) -> Tuple[np.ndarray, int, int]:
 
 def hq_resample(x: jax.Array, L: int, M: int, nout: int) -> jax.Array:
     """Windowed-sinc polyphase resample by the reduced ratio L/M as ONE
-    strided f32 convolution (precision=HIGHEST — the MXU's bf16 default is
-    the round-1 true-peak bug class).  Spec, output-length rule, and the
+    strided f32 convolution (precision=HIGHEST — a TF32 conv at default
+    precision would miss the 1-LSB budget).  Spec, output-length rule, and the
     <= 1 LSB (width 2) device budget: goldref.effects.hq_resample."""
     if max(L, M) > HQ_MAX_FACTOR:
         raise ValueError(

@@ -1,15 +1,15 @@
 """Voice-axis data parallelism over a device mesh.
 
-The reference is single-process/single-node (SURVEY.md §3.4); the TPU-native
-scaling axis is the *voice bank*: voices shard trivially as data parallelism
-over ICI, and the only collective is one ``psum`` of each chunk's [N, 2]
-stereo partial mix.  This module provides the mesh plumbing used by the
+The reference is single-process/single-node (SURVEY.md §3.4); the scaling
+axis here is the *voice bank*: voices shard trivially as data parallelism
+across devices, and the only collective is one ``psum`` of each chunk's
+[N, 2] stereo partial mix.  This module provides the mesh plumbing used by the
 driver's ``dryrun_multichip`` and by multi-chip offline renders.
 
 Layout: every ``VoiceParams`` leaf is sharded on its leading (voice) axis
 with ``PartitionSpec('voices')``; per-voice FM phase carries stay sharded
-across the whole scan; the psum rides ICI once per chunk (bytes per chunk =
-N * 2 * 4, tiny next to the per-device compute).
+across the whole scan; the psum crosses the device interconnect once per
+chunk (bytes per chunk = N * 2 * 4, tiny next to the per-device compute).
 """
 
 from __future__ import annotations
@@ -29,15 +29,11 @@ HITS_AXIS = "voices"   # hit-parallel song mixdowns reuse the same 1-D mesh
 
 
 def voice_mesh(n_devices: Optional[int] = None, devices=None) -> Mesh:
-    """A 1-D mesh over the voice axis.
-
-    Prefers the default backend's devices; falls back to the CPU backend
-    when more devices are requested than the default platform has (the
-    virtual-device test/dry-run path)."""
+    """A 1-D mesh over the voice axis, on the default backend's devices
+    unless ``devices`` is given.  Raises when fewer than ``n_devices``
+    are available: a mesh never moves to another platform."""
     if devices is None:
         devices = jax.devices()
-        if n_devices is not None and len(devices) < n_devices:
-            devices = jax.devices("cpu")
     if n_devices is not None:
         if len(devices) < n_devices:
             raise ValueError(

@@ -1,6 +1,6 @@
 """Global audio parameters.
 
-TPU-native analog of the reference's ``synthplayer/params.py`` module-global
+Device-side analog of the reference's ``synthplayer/params.py`` module-global
 knobs (SURVEY.md §3.1 row 1): normalization targets (44.1 kHz / stereo /
 16-bit), streaming/playback chunk size, oscillator block size, and the
 pop-prevention flag.

@@ -303,12 +303,11 @@ class Output:
         #: every mixed chunk before the sink — the playback twin of the
         #: song [fx] section.  Mixed mode only.
         #:
-        #: ``fx_lookahead`` (round 3, the realtime-voice superblock trick
-        #: applied to the master bus): process N chunks per device round
-        #: trip — ONE host->device->host sync per N*chunk frames instead
-        #: of per chunk, which is what lets a master reverb clear realtime
-        #: on a link-attached relay whose ~30-60 ms sync would otherwise
-        #: eat the whole ~33 ms chunk budget.  Trade-off: new voices join
+        #: ``fx_lookahead`` (the realtime-voice superblock trick applied
+        #: to the master bus): process N chunks per device round trip —
+        #: ONE host->device->host sync per N*chunk frames instead of per
+        #: chunk, for hosts where one sync would eat most of the ~33 ms
+        #: chunk budget.  Trade-off: new voices join
         #: the fx bus up to N-1 chunks late (the mixer itself still mixes
         #: them immediately).  The chain is stateful and evaluates the
         #: same recurrences at any chunk size, so lookahead changes audio

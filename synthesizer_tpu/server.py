@@ -1,8 +1,8 @@
 """Render server: HTTP serving surface for the framework.
 
 The rebuild targets production deployment, not just a library: this module
-serves renders over HTTP (stdlib-only, threaded) so a fleet can treat the
-TPU host as a render node.
+serves renders over HTTP (stdlib-only, threaded) so a fleet can treat a
+GPU host as a render node.
 
 Endpoints
 ---------
@@ -335,11 +335,10 @@ class RenderBatcher:
     concurrently arriving requests queue; the worker then packs ALL queued
     same-samplerate requests' voices into ONE bank program whose pan
     matmul scatters every voice into its request's stereo bus
-    (``VoiceBank.render_song_grouped``).  Under concurrent load the chip
+    (``VoiceBank.render_song_grouped``).  Under concurrent load the device
     runs one program per batch instead of one per request — per-request
-    dispatch/sync overhead (the dominant cost on link-attached TPUs) is
-    paid once per batch.  A lone request takes the single-render path
-    unchanged."""
+    dispatch/sync overhead is paid once per batch.  A lone request takes
+    the single-render path unchanged."""
 
     def __init__(self, max_batch_voices: int = 1024):
         self._cv = threading.Condition()
@@ -485,6 +484,8 @@ def main() -> None:
     ap.add_argument("--max-render-seconds", type=float, default=600.0)
     ap.add_argument("-v", "--verbose", action="store_true")
     args = ap.parse_args()
+    from .utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     srv = RenderServer(args.host, args.port, verbose=args.verbose,
                        sample_root=args.sample_root,
                        max_render_seconds=args.max_render_seconds)

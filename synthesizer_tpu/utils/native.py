@@ -4,7 +4,7 @@ Builds libpcmops.so on first use when a C compiler is available (the .so is
 cached next to the source); every binding has a numpy fallback so the
 framework works without a toolchain.  Used by the realtime playback path,
 where per-chunk device dispatch latency (~0.1 ms) would dominate the work
-(a 33 ms chunk K-way add) — bulk DSP stays on the TPU.
+(a 33 ms chunk K-way add) — bulk DSP stays on the device.
 """
 
 from __future__ import annotations

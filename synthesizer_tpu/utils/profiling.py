@@ -12,6 +12,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import logging
+import subprocess
 import time
 from typing import Iterator, Optional
 
@@ -114,3 +115,26 @@ def timed_stream(chunks, samplerate: int, timer: Optional[RenderTimer] = None):
             timer.stats.wall_seconds += dt
             timer.stats.peak_wall_chunk = max(timer.stats.peak_wall_chunk, dt)
     return gen(), timer
+
+
+def require_gpu():
+    """The first JAX device, which must be a GPU: a measurement that finds
+    no card fails instead of reporting a CPU number."""
+    import jax
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        raise RuntimeError(f"no GPU: JAX's default device is {dev.platform} "
+                           f"({dev.device_kind})")
+    return dev
+
+
+def card_info() -> str:
+    """Each card's name and power limit as ``nvidia-smi`` reports them
+    (one ``name, limit`` line per card).  A card may be capped below its
+    maximum power and then runs slower under load, so every timing is
+    printed beside this."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip()

@@ -1,18 +1,21 @@
-"""docs/API.md is GENERATED (VERDICT r3 #9) — this test keeps it honest:
+"""docs/API.md is GENERATED — this test keeps it honest:
 it regenerates the reference from the live package and fails when the
 checked-in file is stale, and spot-checks completeness (every public
 Sample method and every oscillators.__all__ name appears)."""
 
+import os
 import sys
 
-sys.path.insert(0, "/root/repo")
-sys.path.insert(0, "/root/repo/scripts")
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "scripts"))
+API_MD = os.path.join(ROOT, "docs", "API.md")
 
 
 def test_api_md_is_current():
     import gen_api_docs
     want = gen_api_docs.generate()
-    got = open("/root/repo/docs/API.md").read()
+    got = open(API_MD).read()
     assert got == want, (
         "docs/API.md is stale — run `python scripts/gen_api_docs.py`")
 
@@ -20,7 +23,7 @@ def test_api_md_is_current():
 def test_api_md_is_complete():
     from synthesizer_tpu import oscillators as O
     from synthesizer_tpu.sample import Sample
-    text = open("/root/repo/docs/API.md").read()
+    text = open(API_MD).read()
     for n in dir(Sample):
         if not n.startswith("_") and callable(getattr(Sample, n)):
             assert f"`{n}(" in text, f"Sample.{n} missing from API.md"

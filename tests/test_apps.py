@@ -12,7 +12,7 @@ import pytest
 from synthesizer_tpu import Sample, WaveSynth
 
 import sys
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import trackmixer  # noqa: E402
 from keyboard_gui import EnvSettings, OscSettings, SynthController  # noqa: E402

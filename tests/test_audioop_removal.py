@@ -1,5 +1,5 @@
-"""Python 3.13 readiness: the framework must survive audioop's removal
-(VERDICT r1 #10).  Runs a representative slice of the suite in a child
+"""Python 3.13 readiness: the framework must survive audioop's removal.
+Runs a representative slice of the suite in a child
 pytest with the module hidden: the goldref audioop-conformance tests skip
 cleanly (goldref becomes the sole spec) and product tests stay green."""
 

@@ -1,7 +1,7 @@
 """In-process mp3 / Ogg Vorbis via system codec library bindings.
 
-Closes the last "decode anything needs ffmpeg" dependency (VERDICT r2
-missing #1 follow-through): utils/codecs.py binds the host's stock
+Closes the last "decode anything needs ffmpeg" dependency:
+utils/codecs.py binds the host's stock
 libmpg123/libvorbisfile (decode) and libmp3lame/libvorbisenc (encode)
 with ctypes.  Validation is three-sided:
 

@@ -2,18 +2,21 @@
 
 ``synthesizer_tpu.ops.coeffs`` and ``goldref`` each own a verbatim copy of
 the knob→coefficient mappings (goldref may not import the product, and the
-product must deploy without goldref — VERDICT r2 weak #2).  These tests pin
+product must deploy without goldref).  These tests pin
 the two copies EQUAL over knob grids, so the shared-code blind spot the
 split was made to remove cannot silently reopen, plus first-principles
 anchors for the mappings themselves.
 """
 
 import math
+import os
 
 import numpy as np
 import pytest
 
 from synthesizer_tpu.ops import coeffs as C
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 goldfx = pytest.importorskip("goldref.effects")
 goldspec = pytest.importorskip("goldref.spec")
@@ -151,7 +154,7 @@ def test_product_imports_without_goldref(tmp_path):
                          text=True, timeout=300,
                          env={"PATH": "/usr/bin:/bin",
                               "JAX_PLATFORMS": "cpu",
-                              "PYTHONPATH": "/root/repo"})
+                              "PYTHONPATH": ROOT})
     assert out.returncode == 0, out.stderr
     assert "OK" in out.stdout
 

@@ -442,7 +442,7 @@ def test_pitch_shift_moves_pitch_keeps_duration():
 
 def test_pitch_shift_hq_suppresses_speed_leg_images():
     """quality='hq' routes pitch_shift's speed leg through the
-    windowed-sinc resampler (VERDICT r4 #5): a 15 kHz partial shifted +12
+    windowed-sinc resampler: a 15 kHz partial shifted +12
     lands above Nyquist (30 kHz) and must be REMOVED, where the linear
     leg folds it back as a ~14.1 kHz alias; default stays the exact
     linear composition (bit-identical)."""

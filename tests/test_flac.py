@@ -9,12 +9,15 @@ check values first, so encoder and decoder cannot share a CRC mistake.
 """
 
 import io
+import os
 import struct
 
 import numpy as np
 import pytest
 
 from synthesizer_tpu.utils import flac as F
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SR = 22050
 
@@ -406,11 +409,11 @@ def test_sample_write_flac_and_cli(tmp_path):
         "[song]\nbpm = 240\nticks = 4\npatterns = a\n"
         "[instruments]\nk = k.wav\n[pattern.a]\nk = x.x.\n")
     out = subprocess.run(
-        [_sys.executable, "/root/repo/trackmixer.py",
+        [_sys.executable, os.path.join(ROOT, "trackmixer.py"),
          str(tmp_path / "s.ini"), "-o", str(tmp_path / "mix.flac")],
         capture_output=True, text=True, timeout=600,
         env={"PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu",
-             "PYTHONPATH": "/root/repo"})
+             "PYTHONPATH": ROOT})
     assert out.returncode == 0, out.stderr
     frames, rate, width, nch = F.read_flac(str(tmp_path / "mix.flac"))
     assert rate == 44100 and nch == 2 and len(frames) > 1000

@@ -47,7 +47,9 @@ def test_bank_render_checksum():
     bank = VoiceBank.for_voices(vs, SR, chunk_frames=2048, num_harmonics=4,
                                 layout=lay, nvoices=lay.nvoices)
     out = np.asarray(bank.to_int16(bank.render_song(vp, SR // 4)))
-    assert sha(out) == "281daea2905d21f9"
+    # the pan mix sums voices in a fixed pairwise tree (voicebank
+    # _mix_voices), the same order on every backend and chunk size
+    assert sha(out) == "1b1da7cc83baa6e9"
 
 
 def test_noise_checksum_platform_independent():

@@ -1,4 +1,4 @@
-"""Behavioral GUI driving under the fake-Tk harness (VERDICT r2 #9).
+"""Behavioral GUI driving under the fake-Tk harness.
 
 The views construct for real and their callbacks EXECUTE — key presses
 reach the mixer, knob drags reach the controller state, the reverb toggle
@@ -6,13 +6,14 @@ installs the master FxChain, preset dialogs round-trip through real files
 — instead of being string-matched.  No X server needed.
 """
 
+import os
 import sys
 import time
 
 import numpy as np
 import pytest
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import fake_tk  # noqa: E402
 
@@ -97,7 +98,7 @@ def test_synth_gui_reverb_toggle_installs_fx(faketk):
         toggle.invoke()
         assert gui.ctrl.reverb.enabled is True
         assert gui.output.fx is not None
-        assert gui.output.fx_lookahead == 4     # the relay superblock
+        assert gui.output.fx_lookahead == 4     # the fx-bus superblock
         for w in rev.children:
             if isinstance(w, fake_tk.Scale) and w.kw.get("label") == "wet":
                 w.drive(0.9)

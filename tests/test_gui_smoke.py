@@ -3,16 +3,17 @@
 The Tk views are driven BEHAVIORALLY under the fake-Tk harness in
 test_gui_behavior.py (key presses reach the mixer, knobs drive the
 controller, preset dialogs round-trip) — that suite superseded this
-file's old source-string matching (VERDICT r3 weak #7).  What remains
+file's old source-string matching.  What remains
 here: the views import, and with a real display available (not this
 machine: tkinter present, no X server) they construct and tick.
 """
 
+import os
 import sys
 
 import pytest
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def _display_available() -> bool:

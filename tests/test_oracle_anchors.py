@@ -1,4 +1,4 @@
-"""Absolute anchors for the golden oracle (VERDICT r1 #5).
+"""Absolute anchors for the golden oracle.
 
 The PCM side of goldref is anchored to the real C audioop
 (test_goldref_pcm.py).  These tests give the oscillator side the same kind

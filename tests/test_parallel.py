@@ -9,8 +9,9 @@ from synthesizer_tpu.models.voicebank import VoiceBank, pack_voices
 from synthesizer_tpu.parallel.mesh import (render_song_sharded,
                                            shard_voice_params, voice_mesh)
 
+import os
 import sys
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import __graft_entry__ as graft  # noqa: E402
 
 SR = 8000
@@ -64,7 +65,7 @@ def _make_song():
 
 
 def test_song_mix_sharded_matches_single_device():
-    """Flagship song path over the 8-device mesh (VERDICT r1 #3): the drum
+    """Flagship song path over the 8-device mesh: the drum
     scatter-add psum is bit-exact; synth voices differ only by f32 psum
     summation order (<= 1 LSB after int16 quantization)."""
     song = _make_song()
@@ -104,7 +105,7 @@ def test_song_streaming_sharded_equals_offline():
 
 def test_midi_render_sharded_matches_single_device():
     """render_midi(mesh=) shards the voice axis — including continuous
-    bend, CC7/CC11 gain, and CC1+pressure depth curves (VERDICT r4 #7) —
+    bend, CC7/CC11 gain, and CC1+pressure depth curves —
     and matches the single-device render within 1 LSB (one f32 psum,
     quantized once)."""
     from synthesizer_tpu.midi import MidiNote, render_midi, write_midi
@@ -167,7 +168,7 @@ def test_track_fx_automation_sharded_matches_single_device():
 
 
 def test_master_chain_budget_formula_tracks():
-    """The mesh swept-chain budget is DERIVED (VERDICT r3 #7):
+    """The mesh swept-chain budget is DERIVED:
     ops.coeffs.master_chain_error_bound composes the pre-master bus
     error through each stage's gain bound.  Vary the chain and check the
     formula tracks — measured error stays under the bound for each

@@ -212,7 +212,7 @@ def _soak_song(seconds=10.0):
 
 def test_streaming_soak_realtime_with_meter(tmp_path):
     """10 s song: mix_generator -> Output(wav sink) with the level meter on
-    must sustain > 1x realtime wall-clock on CPU (VERDICT r1 #6 — metering
+    must sustain > 1x realtime wall-clock on CPU (— metering
     is one host materialization per chunk, so it cannot eat the budget)."""
     from synthesizer_tpu import LevelMeter
     song = _soak_song(10.0)
@@ -239,7 +239,7 @@ def test_streaming_soak_realtime_with_meter(tmp_path):
         assert w.getnframes() > 9 * SR              # audio really hit the sink
 
 
-# -- decode ladder (VERDICT r1 #7): the subprocess plumbing runs in CI via
+# -- decode ladder: the subprocess plumbing runs in CI via
 # fake binaries; a real-codec smoke runs wherever ffmpeg exists ------------
 
 def _write_fake_decoder(tmp_path, name, wav_path):

@@ -5,7 +5,7 @@ and sequencer [synth.*] wave=pluck tracks.
 Numeric spec: goldref/spec.py docstring ("Pluck" bullet).  The classic KS
 delay-line + averager loop is evaluated closed-form: each harmonic k of a
 seeded random excitation decays as cos(pi*k*f/sr) per period — batched
-over harmonics, stateless over time (TPU-first; no sequential recurrence).
+over harmonics, stateless over time (data-parallel; no sequential recurrence).
 """
 
 import numpy as np
@@ -131,24 +131,6 @@ def test_bank_pluck_chunk_invariant():
                                     nvoices=layout.nvoices)
         outs.append(np.asarray(bank.render_song(vp, n)))
     np.testing.assert_array_equal(outs[0], outs[1])
-
-
-def test_pallas_engine_pluck_parity():
-    """The Mosaic kernel's pluck branch (hash + exp/log + shared sine
-    poly, signed-i32 phase) matches the XLA engine (interpret mode here;
-    the compiled kernel is pinned by the on-chip battery)."""
-    voices = [Voice(wave="pluck", frequency=110.0 * (i + 1) * 1.01,
-                    amplitude=0.2, phase=0.1 * i, pan=(i - 1.5) / 2,
-                    start=0.002 * i, duration=0.06, seed=20 + i,
-                    damping=1.0 + 0.5 * i) for i in range(4)]
-    vp, layout = pack_voices(voices, SR, num_harmonics=4, sort_by_wave=True)
-    bank = VoiceBank.for_voices(voices, SR, chunk_frames=1024,
-                                num_harmonics=4, layout=layout,
-                                nvoices=layout.nvoices)
-    n = 4096
-    x = np.asarray(bank.render_song(vp, n))
-    p = np.asarray(bank.render_song(vp, n, engine="pallas"))
-    assert np.abs(x - p).max() < 1e-4
 
 
 def test_sequencer_pluck_track(tmp_path):

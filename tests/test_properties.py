@@ -96,7 +96,7 @@ def test_timed_stream(rng):
 
 def test_demo_song_end_to_end(tmp_path):
     """examples/make_demo_song.py -> trackmixer offline mix -> valid WAV."""
-    sys.path.insert(0, "/root/repo/examples")
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "examples"))
     import make_demo_song
     outdir = str(tmp_path / "kit")
     make_demo_song.make_kit(outdir)

@@ -3,12 +3,16 @@
 == offline invariance.  Covers benchmark config 3's op set.
 """
 
+import os
+
 import numpy as np
 import pytest
 
 import goldref.sample as gs
 from synthesizer_tpu import Sample, WaveSynth
 from synthesizer_tpu.sequencer import Song
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 SR = 44100
 
@@ -167,7 +171,7 @@ def test_config3_sixteen_track_mixdown():
 
 def test_config3_fuses_to_one_program():
     """The whole 16-track config-3 workload — synthesis included — must
-    compile to at most 3 device programs (VERDICT r1 #2; it is 1 today:
+    compile to at most 3 device programs (it is 1 today:
     WaveSynth renders stage as gen_patch IR nodes and every mix_at fuses
     the track's chain as a sub-program)."""
     from synthesizer_tpu.utils import profiling
@@ -225,7 +229,7 @@ def test_mixdown_scatter_batching_bit_exact(monkeypatch):
 def test_long_dense_song_streaming_scales():
     """>=5 min song with >=5k hits: mix_generator's schedule indexing is a
     single bucketed pass (not O(nchunks x hits)) and the stream sustains
-    well over realtime on CPU (VERDICT r1 #8)."""
+    well over realtime on CPU."""
     import time
     synth = WaveSynth(samplerate=SR, samplewidth=2)
     song = Song()
@@ -455,11 +459,11 @@ k = x.x.
 lead = C4 . E4 .
 """)
     out = subprocess.run(
-        [_sys.executable, "/root/repo/trackmixer.py",
+        [_sys.executable, os.path.join(ROOT, "trackmixer.py"),
          str(tmp_path / "s.ini"), "--stems", str(tmp_path / "stems")],
         capture_output=True, text=True, timeout=600,
         env={"PATH": "/usr/bin:/bin", "JAX_PLATFORMS": "cpu",
-             "PYTHONPATH": "/root/repo"})
+             "PYTHONPATH": ROOT})
     assert out.returncode == 0, out.stderr
     for name in ("k", "lead"):
         with _wave.open(str(tmp_path / "stems" / f"{name}.wav")) as w:

@@ -263,7 +263,7 @@ def test_output_master_fx(tmp_path):
 
 def test_output_fx_lookahead_superblocks(tmp_path):
     """Output(fx=, fx_lookahead=4) runs the chain once per 4 chunks (one
-    device sync per superblock — the relay-realtime fix).  The chain is
+    device sync per superblock).  The chain is
     stateful at any chunk size, so the audio matches lookahead=1 within
     the effect's chunk-regrouping budget, and the reverb tail still rings
     past the voice end."""

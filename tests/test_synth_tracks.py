@@ -1,5 +1,7 @@
 """Melodic synth tracks in the sequencer (beyond-reference feature)."""
 
+import os
+
 import numpy as np
 import pytest
 
@@ -108,7 +110,7 @@ def test_wavetable_synth_track_end_to_end():
     """A [synth.*] wavetable track renders through the batched bank and
     matches the per-voice oracle (bank_table canonicalization shared)."""
     import sys
-    sys.path.insert(0, "/root/repo/tests")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import test_voicebank as T
     from synthesizer_tpu.sequencer import Song, SynthDef
     table = (0.0, 0.9, 0.3, -0.6, -1.0, -0.2)

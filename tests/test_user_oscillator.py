@@ -1,4 +1,4 @@
-"""User-extensible oscillators (VERDICT r3 #5): any reference-style
+"""User-extensible oscillators: any reference-style
 object with blocks(), iterator, or random-access callable composes into
 the device graph through UserOscillator / Oscillator.from_blocks."""
 

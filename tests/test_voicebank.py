@@ -170,7 +170,7 @@ def test_bank_matches_oracle_sum():
     want16 = np.clip(np.rint(want * 32767.0), -32768, 32767)
     d = np.abs(got16 - want16).max()
     # f32-exact mix: only per-voice quantization + summation order remain
-    # (a loose bound here once masked the MXU's default bf16 matmul inputs)
+    # (a loose bound here would mask reduced-precision matmul inputs)
     assert d <= 3, f"max diff {d}"
 
 
@@ -386,21 +386,6 @@ def test_glide_downward_and_landing_increment():
     assert abs(f - 110.0) < 0.5
 
 
-def test_glide_pallas_parity():
-    sr = 44100
-    voices = [Voice(wave=w, frequency=660.0, glide_from=330.0,
-                    glide_time=0.04, start=0.005, duration=0.2,
-                    amplitude=0.4)
-              for w in ("sine", "sawtooth", "square", "triangle")]
-    voices.append(Voice(wave="sine", frequency=440.0, amplitude=0.3))
-    vp, layout = pack_voices(voices, sr, sort_by_wave=True)
-    bank = VoiceBank.for_voices(voices, sr, layout=layout,
-                                nvoices=layout.nvoices)
-    a = np.asarray(bank.render_song(vp, 11025))
-    b = np.asarray(bank.render_song(vp, 11025, engine="pallas"))
-    assert np.max(np.abs(a - b)) < 2e-6
-
-
 def test_no_glide_banks_untouched():
     # a glide-free bank must compile WITHOUT the glide formula and render
     # exactly as before (use_glide=False is the static default)
@@ -421,7 +406,7 @@ def test_no_glide_banks_untouched():
 def test_glide_pluck_excluded():
     # pluck's spectral decay rates are tied to ONE pitch, so glide is
     # excluded by construction: a glided pluck renders EXACTLY as the
-    # same voice without glide (target pitch), in both engines
+    # same voice without glide (target pitch)
     sr = 44100
     base = dict(wave="pluck", frequency=440.0, start=0.005, duration=0.3,
                 amplitude=0.5, seed=7)
@@ -435,32 +420,6 @@ def test_glide_pluck_excluded():
     a = np.asarray(bg.render_song(vpg, 8192))
     b = np.asarray(bn.render_song(vpn, 8192))
     assert np.array_equal(a, b)
-    ap = np.asarray(bg.render_song(vpg, 8192, engine="pallas"))
-    bp = np.asarray(bn.render_song(vpn, 8192, engine="pallas"))
-    assert np.max(np.abs(ap - bp)) == 0.0
-
-
-def test_glide_blep_pallas_parity():
-    # bandlimited saw/square under glide: the BLEP dt now tracks the
-    # instantaneous chirp increment — both engines must agree (ADVICE r3:
-    # the old parity test only covered naive waveforms)
-    sr = 44100
-    voices = [Voice(wave=w, frequency=1760.0, glide_from=110.0,
-                    glide_time=0.15, start=0.005, duration=0.2,
-                    amplitude=0.4)
-              for w in ("sawtooth_bl", "square_bl")]
-    vp, layout = pack_voices(voices, sr, sort_by_wave=True)
-    bank = VoiceBank.for_voices(voices, sr, layout=layout,
-                                nvoices=layout.nvoices)
-    a = np.asarray(bank.render_song(vp, 11025))
-    b = np.asarray(bank.render_song(vp, 11025, engine="pallas"))
-    # the engines' phase representations differ by <= 2^-24 turn (kernel
-    # docstring); the BLEP residual amplifies that by ~2/dt (dt = 0.0025
-    # at the 110 Hz glide start), so assert the int16 1-LSB contract
-    # rather than the naive-wave 2e-6
-    a16 = np.clip(np.rint(a * 32767), -32768, 32767)
-    b16 = np.clip(np.rint(b * 32767), -32768, 32767)
-    assert np.abs(a16 - b16).max() <= 1
 
 
 def test_glide_blep_dt_tracks_instantaneous_pitch():
@@ -589,15 +548,8 @@ def test_amp_curve_matches_f64_twin():
     assert np.abs(g16 - w16).max() <= 1
 
 
-def test_curves_reject_pallas_and_glide_mix():
+def test_curves_reject_glide_mix():
     sr = 44100
-    v = Voice(wave="sine", frequency=440.0,
-              pitch_curve=((0.0, 1.0), (0.1, 2.0)), duration=0.2)
-    vp, layout = pack_voices([v], sr, sort_by_wave=True)
-    bank = VoiceBank.for_voices([v], sr, layout=layout,
-                                nvoices=layout.nvoices)
-    with pytest.raises(ValueError, match="pallas engine does not support"):
-        bank.render_song(vp, 4096, engine="pallas")
     bad = Voice(wave="sine", frequency=440.0, glide_from=220.0,
                 glide_time=0.05, pitch_curve=((0.0, 1.0), (0.1, 2.0)))
     with pytest.raises(ValueError, match="mutually exclusive"):

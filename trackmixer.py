@@ -20,6 +20,7 @@ import sys
 import time
 
 from synthesizer_tpu import LevelMeter, Output, Song
+from synthesizer_tpu.utils.compile_cache import enable_compile_cache
 
 
 def mix_to_wav(song: Song, outfile: str, normalize: bool = True,
@@ -44,7 +45,7 @@ def play_streaming(song: Song, with_meter: bool = True,
     meter = LevelMeter(loudness=True) if with_meter else None
     start_frame = int(start_seconds * song.samplerate)
     # ~0.2 s chunks: sequential playback doesn't need mixer-sized blocks,
-    # and on link-attached TPUs the ~30 ms per-chunk host sync amortizes
+    # and the per-chunk host sync amortizes over more audio
     chunk_frames = song.samplerate // 5
     with Output(samplerate=song.samplerate, nchannels=song.nchannels,
                 mixing="sequential") as out:
@@ -219,6 +220,7 @@ def main(argv=None) -> int:
                     "in-process lossless encoder; mp3/ogg = lossy via the "
                     "system codec libraries)")
     args = ap.parse_args(argv)
+    enable_compile_cache()
     if args.start < 0:
         ap.error("--start must be >= 0")
     if args.start and not args.play:
